@@ -1,7 +1,7 @@
 """Library quickstart: fit surfaces, price greeks, stream refits.
 
 Run from the repo root:  python examples/quickstart.py
-(works on CPU or TPU; first TPU compiles take ~30s each)
+(works on CPU or GPU; first compiles take seconds each)
 """
 
 import numpy as np
@@ -15,7 +15,7 @@ def main():
     # ------------------------------------------------------------------
     # 1. Fit a batch of vol surfaces (choose any smile family)
     # ------------------------------------------------------------------
-    from iv_interpolation_tpu.surface import eval_surface, fit_eval_surface
+    from iv_engine.surface import eval_surface, fit_eval_surface
 
     B, E, n = 32, 12, 40                      # surfaces x expiries x strikes
     k = jnp.broadcast_to(jnp.linspace(-1.0, 1.0, n), (B, E, n))
@@ -33,7 +33,7 @@ def main():
 
     # Dupire local vol + risk-neutral density — byproducts of the
     # arbitrage machinery on the evaluated grid
-    from iv_interpolation_tpu.surface import local_vol_surface
+    from iv_engine.surface import local_vol_surface
 
     lv = local_vol_surface(out)
     print("local vol grid:", lv["local_vol"].shape,
@@ -48,7 +48,7 @@ def main():
     # ------------------------------------------------------------------
     # 2. Greek surfaces from the fit
     # ------------------------------------------------------------------
-    from iv_interpolation_tpu.surface.greeks import greek_surfaces
+    from iv_engine.surface.greeks import greek_surfaces
 
     g = greek_surfaces(out["k_grid"], out["iv_grid"], out["fit"].expiries,
                        jnp.full((B,), 25_000.0), 0.03, is_call=True)
@@ -58,8 +58,8 @@ def main():
     # ------------------------------------------------------------------
     # 3. SVI / SABR / smoothing-spline smile calibration
     # ------------------------------------------------------------------
-    from iv_interpolation_tpu.models.svi import fit_svi_batched, svi_total_variance
-    from iv_interpolation_tpu.models.spline import fit_smoothing_spline_autolam
+    from iv_engine.models.svi import fit_svi_batched, svi_total_variance
+    from iv_engine.ops.smoothing_spline import fit_smoothing_spline_autolam
 
     w_slices = iv**2 * T[..., None]
     svi = fit_svi_batched(k, w_slices, max_iters=60, init="quasi")
@@ -76,7 +76,7 @@ def main():
     # 4. Streaming: ticks -> candles -> realized vol -> refit, in one jit
     # ------------------------------------------------------------------
     import pandas as pd
-    from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+    from iv_engine.pipeline.stream_service import StreamingSession
 
     unds = [f"u{i}" for i in range(8)]
     sess = StreamingSession(unds, k[:8], iv[:8], T[:8],
@@ -100,7 +100,7 @@ def main():
     # ------------------------------------------------------------------
     # 5. Scattered quotes: RBF surface with no-arbitrage penalty repair
     # ------------------------------------------------------------------
-    from iv_interpolation_tpu.ops.rbf import eval_rbf, fit_rbf_arbfree
+    from iv_engine.ops.rbf import eval_rbf, fit_rbf_arbfree
 
     nq = 512
     kq = jnp.asarray(rng.uniform(-1, 1, nq))
@@ -116,8 +116,8 @@ def main():
     # 6. Andreasen-Huge: arbitrage-free BY CONSTRUCTION (even on
     #    arbitrage-laden quotes, and between quoted maturities)
     # ------------------------------------------------------------------
-    from iv_interpolation_tpu.ops.andreasen_huge import (eval_ah,
-                                                         fit_eval_ah_surface)
+    from iv_engine.ops.andreasen_huge import (eval_ah,
+                                              fit_eval_ah_surface)
 
     iv_arby = np.asarray(iv[:4, :, :16]).copy()
     iv_arby[:, :, 8] *= 1.4     # butterfly violation at the money
@@ -132,7 +132,7 @@ def main():
     # ------------------------------------------------------------------
     # 7. Serving: the same session over Arrow Flight (columnar gRPC)
     # ------------------------------------------------------------------
-    from iv_interpolation_tpu.pipeline import flight_service as fs
+    from iv_engine.pipeline import flight_service as fs
 
     if fs.HAVE_FLIGHT:
         import pyarrow.flight as fl

@@ -7,7 +7,7 @@
 // write into one cache-friendly sweep over rows.
 //
 // Build: make -C native   (g++ -O3 -shared -fPIC)
-// Binding: ctypes (iv_interpolation_tpu/native/__init__.py); the Python
+// Binding: ctypes (iv_engine/native/__init__.py); the Python
 // side falls back to NumPy when the shared object is missing.
 
 #include <cstdint>

@@ -26,7 +26,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iv_interpolation_tpu.ops.essvi import essvi_w, fit_essvi_batched
+from iv_engine.ops.essvi import essvi_w, fit_essvi_batched
 
 E, n = 30, 50
 

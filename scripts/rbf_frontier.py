@@ -1,10 +1,10 @@
-"""RBF exact-vs-reduced frontier: held-out accuracy and TPU throughput.
+"""RBF exact-vs-reduced frontier: held-out accuracy and device throughput.
 
 Round-5 verdict item #3: publish the accuracy/speed frontier of the
 reduced-center (least-squares) arbitrage-penalized RBF so the default
 basis size is a measured decision, not a guess.
 
-Stages (run on the chip; results go to docs/PERF.md):
+Stages (run on the chip; results go to PERF.md):
 
   accuracy — B=8 surfaces, 2048 training quotes + 512 held-out quotes
     drawn from a smooth arbitrage-free SVI-in-k / linear-in-T ground
@@ -29,7 +29,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iv_interpolation_tpu.ops.rbf import fit_eval_rbf_arbfree_batched
+from iv_engine.ops.rbf import fit_eval_rbf_arbfree_batched
 
 
 def emit(tag: str, payload: dict) -> None:

@@ -1,8 +1,9 @@
 """Prefill the persistent XLA compilation cache for production shapes.
 
-First compiles on this runtime cost ~30s-2min per kernel shape; running
-this once after deployment (or a config change to bucket_sizes /
-batch_size) makes every subsequent pipeline run start warm.
+First compiles cost seconds to minutes per kernel shape; running this
+once after deployment (or a config change to bucket_sizes / batch_size)
+makes every subsequent pipeline run start warm. The cache directory is
+``JAX_COMPILATION_CACHE_DIR`` if set, else ``<checkout>/.jax_cache``.
 
 Usage:  python scripts/warmup.py [--env production]
 """
@@ -22,15 +23,14 @@ def main():
     os.environ["ENVIRONMENT"] = args.env
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/ivtpu_xla"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from iv_engine import compile_cache
+    compile_cache.enable()
 
     import numpy as np
-    from iv_interpolation_tpu.config import get_config
-    from iv_interpolation_tpu.pipeline import MemoryStore, PipelineRunner
-    from iv_interpolation_tpu.pipeline import storage as st
-    from iv_interpolation_tpu.pipeline.sample_data import (
+    from iv_engine.config import get_config
+    from iv_engine.pipeline import MemoryStore, PipelineRunner
+    from iv_engine.pipeline import storage as st
+    from iv_engine.pipeline.sample_data import (
         generate_sample_tickers)
 
     cfg = get_config()
@@ -52,7 +52,7 @@ def main():
           flush=True)
 
     t0 = time.time()
-    from iv_interpolation_tpu.ops.spline_matrix import (
+    from iv_engine.ops.spline_matrix import (
         build_surface_operators, fit_eval_surface_grid)
     import jax.numpy as jnp
     E, n, m = 30, 50, 50

@@ -1,5 +1,5 @@
 """In-process PostgreSQL mock server for exercising the pure-Python wire
-driver (iv_interpolation_tpu.pipeline.pgwire) against REAL protocol
+driver (iv_engine.pipeline.pgwire) against REAL protocol
 bytes over a loopback socket.
 
 This image has no psycopg2, no pg8000 and no PostgreSQL server, and

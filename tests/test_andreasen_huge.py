@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.ops.andreasen_huge import (
+from iv_engine.ops.andreasen_huge import (
     _price_space_density,
     _step_system,
     ah_step,
@@ -18,7 +18,7 @@ from iv_interpolation_tpu.ops.andreasen_huge import (
     fit_eval_ah_surface,
     normalized_call,
 )
-from iv_interpolation_tpu.ops.tridiag import tridiag_matvec
+from iv_engine.ops.tridiag import tridiag_matvec
 
 
 def _chain(B=2, E=4, m=13, dtype=np.float64, skew=0.0):
@@ -238,7 +238,7 @@ def test_f32_flags_stable():
 def test_ah_local_vol_matches_theta_cells():
     """ah_local_vol returns theta mapped onto the grid through the
     quote-midpoint cells — exact, piecewise-constant, positive."""
-    from iv_interpolation_tpu.ops.andreasen_huge import ah_local_vol
+    from iv_engine.ops.andreasen_huge import ah_local_vol
 
     k, iv, T = _chain(B=1, E=2)
     fit = fit_ah(jnp.asarray(k), jnp.asarray(iv), jnp.asarray(T),

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.stats import norm
 
-from iv_interpolation_tpu.ops.black_scholes import bs_greeks, bs_price, implied_vol
+from iv_engine.ops.black_scholes import bs_greeks, bs_price, implied_vol
 
 
 def _reference_greeks(S, K, T, r, sigma, option_type):

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.ops.bridge import (
+from iv_engine.ops.bridge import (
     BridgeParams,
     synthesize_ohlcv,
     validate_bridge_quality,

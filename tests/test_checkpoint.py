@@ -3,13 +3,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from iv_interpolation_tpu.pipeline.checkpoint import (
+from iv_engine.pipeline.checkpoint import (
     restore_state,
     restore_surface_fit,
     save_state,
     save_surface_fit,
 )
-from iv_interpolation_tpu.surface.surface import eval_surface, fit_surface
+from iv_engine.surface.surface import eval_surface, fit_surface
 
 
 def test_state_roundtrip(tmp_path, rng):

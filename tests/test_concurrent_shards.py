@@ -4,20 +4,22 @@ missing item — the sequential-loop test proved the partition math but
 never the one concurrency mode the reference actually ran,
 src/interpolation/batch_processor.py:234-239).
 
-The proofs live in iv_interpolation_tpu.parallel.shardproof so the
+The proofs live in iv_engine.parallel.shardproof so the
 driver-visible dry run records the same evidence every round; these
 tests are the suite-side gate.
 """
 
 import os
 
+import jax
 import pytest
 
-from iv_interpolation_tpu.parallel import shardproof
+from iv_engine.parallel import shardproof
 
 # shard subprocesses are plain-CPU CLI runs; share the suite's
 # persistent compile cache so their first-compiles amortise across runs
-_CACHE = os.path.join(os.path.expanduser("~"), ".cache", "ivtpu_test_xla")
+_CACHE = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+          or jax.config.jax_compilation_cache_dir)
 
 
 @pytest.mark.slow

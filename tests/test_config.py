@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from iv_interpolation_tpu.config import Config, config_to_dict, get_config
+from iv_engine.config import Config, config_to_dict, get_config
 
 
 def test_presets():
@@ -58,7 +58,7 @@ def test_every_interpolation_knob_is_consumed():
     """Guard against the reference's decorative-knob defect (SURVEY §2.1.5):
     the fields must appear in the runner/kernels source."""
     import inspect
-    from iv_interpolation_tpu.pipeline import runner, tasks, ingest
+    from iv_engine.pipeline import runner, tasks, ingest
     src = (inspect.getsource(runner) + inspect.getsource(tasks)
            + inspect.getsource(ingest))
     for knob in ("frequency", "method", "max_gap_hours", "min_data_points",
@@ -78,10 +78,10 @@ def test_every_processing_knob_is_consumed():
     ProcessingConfig field the interpolation-knob guard didn't cover)."""
     import dataclasses
     import inspect
-    from iv_interpolation_tpu import cli
-    from iv_interpolation_tpu.config import ProcessingConfig
-    from iv_interpolation_tpu.pipeline import runner, tasks, ingest
-    from iv_interpolation_tpu.parallel import mesh
+    from iv_engine import cli
+    from iv_engine.config import ProcessingConfig
+    from iv_engine.pipeline import runner, tasks, ingest
+    from iv_engine.parallel import mesh
     src = (inspect.getsource(runner) + inspect.getsource(tasks)
            + inspect.getsource(ingest) + inspect.getsource(mesh)
            + inspect.getsource(cli))
@@ -94,10 +94,10 @@ def test_every_surface_knob_is_consumed():
     task / model-family source (covers the new 'compensated' switch)."""
     import dataclasses
     import inspect
-    from iv_interpolation_tpu.config import SurfaceConfig
-    from iv_interpolation_tpu.models import (_slicewise, andreasen_huge,
-                                             rbf, spline)
-    from iv_interpolation_tpu.pipeline import surface_task
+    from iv_engine.config import SurfaceConfig
+    from iv_engine.models import (_slicewise, andreasen_huge,
+                                  rbf, spline)
+    from iv_engine.pipeline import surface_task
     src = (inspect.getsource(surface_task) + inspect.getsource(_slicewise)
            + inspect.getsource(spline) + inspect.getsource(rbf)
            + inspect.getsource(andreasen_huge))
@@ -109,7 +109,7 @@ def test_models_registry_and_utils():
     """models/ is a real registry: every family resolves to a
     SurfaceModel whose callables the pipeline consumes; unknown names
     fail with the available list."""
-    from iv_interpolation_tpu import models
+    from iv_engine import models
     assert set(models.available()) == {
         "cubic_spline", "smoothing_spline", "svi", "essvi", "sabr",
         "rbf", "ah"}
@@ -122,13 +122,13 @@ def test_models_registry_and_utils():
     with pytest.raises(ValueError, match="essvi"):
         models.get("nope")
     # family modules still expose their public math
-    from iv_interpolation_tpu.models import rbf, sabr, spline, svi
+    from iv_engine.models import rbf, sabr, spline, svi
     assert callable(spline.fit_eval_smile)
     assert callable(svi.fit_svi_batched)
     assert callable(sabr.fit_sabr_batched)
     assert callable(rbf.fit_rbf)
-    from iv_interpolation_tpu.utils import (choose_bucket, pad_to_multiple,
-                                            to_epoch_minutes)
+    from iv_engine.utils import (choose_bucket, pad_to_multiple,
+                                 to_epoch_minutes)
     assert pad_to_multiple(3, 8) == 8
     assert choose_bucket(100, (64, 256)) == 256
     import pandas as pd
@@ -139,7 +139,7 @@ def test_load_dotenv_and_cli_env_file(tmp_path, monkeypatch):
     """A .env written by --init-env actually participates in the config
     overlay (regression: round-3 review found the template inert —
     nothing ever parsed .env). Real environment variables win."""
-    from iv_interpolation_tpu.config import get_config, load_dotenv
+    from iv_engine.config import get_config, load_dotenv
 
     env_file = tmp_path / ".env"
     env_file.write_text(

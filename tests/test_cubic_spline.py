@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from scipy.interpolate import CubicSpline
 
-from iv_interpolation_tpu.ops.cubic_spline import (
+from iv_engine.ops.cubic_spline import (
     eval_cubic_spline,
     eval_cubic_spline_deriv,
     eval_cubic_spline_second_deriv,

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.ops import df64 as df
+from iv_engine.ops import df64 as df
 
 
 def _rand_f32(rng, n=4096, scale_span=12):

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.ops.essvi import (
+from iv_engine.ops.essvi import (
     EssviFit,
     _transform,
     essvi_g,
@@ -21,7 +21,7 @@ from iv_interpolation_tpu.ops.essvi import (
     fit_essvi_batched,
     psi_butterfly_cap,
 )
-from iv_interpolation_tpu.surface.surface import fit_eval_surface, fit_surface
+from iv_engine.surface.surface import fit_eval_surface, fit_surface
 
 
 @pytest.fixture
@@ -193,7 +193,7 @@ def test_surface_api_essvi(rng):
 
 
 def test_eval_surface_maturity_interp(rng):
-    from iv_interpolation_tpu.surface.surface import eval_surface
+    from iv_engine.surface.surface import eval_surface
     params, k, w = _mk_surface(rng, E=6, n=21, B=2)
     T = jnp.asarray(np.broadcast_to(
         np.linspace(0.1, 1.1, 6), (2, 6)).copy())
@@ -228,7 +228,7 @@ def test_essvi_slice_is_svi_slice(rng):
     """Every eSSVI slice is a raw-SVI slice under the closed-form map
     (a, b, rho, m, sigma) = (theta(1-rho^2)/2, psi/2, rho, -theta rho/psi,
     theta sqrt(1-rho^2)/psi) — cross-checks both models' w AND g."""
-    from iv_interpolation_tpu.ops.svi import svi_g, svi_total_variance
+    from iv_engine.ops.svi import svi_g, svi_total_variance
     params, k, w = _mk_surface(rng, E=5, n=31)
     theta, rho, psi = params[..., 0], params[..., 1], params[..., 2]
     a = theta * (1 - rho**2) / 2
@@ -255,8 +255,8 @@ def test_block_solver_matches_dense(rng):
     fit quality, not elementwise."""
     import jax.numpy as jnp
     import numpy as np
-    from iv_interpolation_tpu.ops.essvi import (essvi_w, fit_essvi_batched,
-                                                psi_butterfly_cap)
+    from iv_engine.ops.essvi import (essvi_w, fit_essvi_batched,
+                                     psi_butterfly_cap)
 
     B, E, n = 4, 10, 30
     k = jnp.broadcast_to(jnp.linspace(-1.0, 1.0, n), (B, E, n))

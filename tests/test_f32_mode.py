@@ -1,6 +1,6 @@
 """Fast-mode (float32) accuracy envelope.
 
-The parity suite runs in float64; the TPU fast path runs float32. These
+The parity suite runs in float64; the device fast path runs float32. These
 tests document and enforce the f32 deviation envelope against the f64
 oracles (SURVEY.md §7.3: "f32 fast mode with documented tolerance").
 """
@@ -10,13 +10,13 @@ import numpy as np
 import pytest
 from scipy.interpolate import CubicSpline
 
-from iv_interpolation_tpu.ops.cubic_spline import fit_eval_smile
-from iv_interpolation_tpu.ops.interp import masked_interp
-from iv_interpolation_tpu.ops.spline_matrix import (
+from iv_engine.ops.cubic_spline import fit_eval_smile
+from iv_engine.ops.interp import masked_interp
+from iv_engine.ops.spline_matrix import (
     apply_spline_operator,
     build_spline_operator,
 )
-from iv_interpolation_tpu.ops.svi import fit_svi, svi_total_variance
+from iv_engine.ops.svi import fit_svi, svi_total_variance
 
 
 def test_spline_f32_envelope(rng):

@@ -7,8 +7,8 @@ tables."""
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.pipeline import flight_service as fs
-from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+from iv_engine.pipeline import flight_service as fs
+from iv_engine.pipeline.stream_service import StreamingSession
 
 pytestmark = pytest.mark.skipif(
     not fs.HAVE_FLIGHT, reason="pyarrow.flight unavailable")
@@ -74,7 +74,7 @@ def test_flight_matches_jsonl_transport(server, rng):
     identical ticks give identical refit numbers."""
     import pyarrow.flight as fl
 
-    from iv_interpolation_tpu.pipeline.serve import StreamServer, send_lines
+    from iv_engine.pipeline.serve import StreamServer, send_lines
 
     u, m, p, s = _tick_cols(rng, "btc", 200)
 

@@ -9,7 +9,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from iv_interpolation_tpu.ops.interp import (
+from iv_engine.ops.interp import (
     ffill,
     masked_interp,
     scatter_observations,
@@ -145,7 +145,7 @@ def test_extrapolate_single_point_is_constant():
 
 
 def test_cubic_resample_matches_pandas(rng):
-    from iv_interpolation_tpu.ops.interp import cubic_resample
+    from iv_engine.ops.interp import cubic_resample
     L, k = 300, 14
     pos = np.sort(rng.choice(L, size=k, replace=False))
     pos[0], pos[-1] = 3, L - 5  # leading/trailing NaN regions exist
@@ -158,7 +158,7 @@ def test_cubic_resample_matches_pandas(rng):
 
 
 def test_cubic_resample_batched(rng):
-    from iv_interpolation_tpu.ops.interp import cubic_resample
+    from iv_engine.ops.interp import cubic_resample
     B, L, k = 6, 200, 10
     pos = np.sort(np.stack([rng.choice(L, size=k, replace=False)
                             for _ in range(B)]), axis=-1)
@@ -189,7 +189,7 @@ def test_linear_fuzz_vs_pandas(seed):
 @pytest.mark.parametrize("seed", range(4))
 def test_aggregate_fuzz_vs_pandas(seed):
     """Random timestamps/frequencies through the segment aggregation."""
-    from iv_interpolation_tpu.ops.segment_ohlcv import aggregate_ohlcv
+    from iv_engine.ops.segment_ohlcv import aggregate_ohlcv
     r = np.random.default_rng(100 + seed)
     freq = int(r.choice([3, 5, 7, 15]))
     n = int(r.integers(50, 400))
@@ -235,7 +235,7 @@ def test_pack_symbols_const_cols_first_non_null():
     not the first row's value."""
     import numpy as np
     import pandas as pd
-    from iv_interpolation_tpu.pipeline import ingest
+    from iv_engine.pipeline import ingest
 
     dates = pd.date_range("2023-03-01", periods=12, freq="1h")
     df = pd.DataFrame({
@@ -312,7 +312,7 @@ def test_pack_symbols_string_dates_sort_chronologically():
     wrapped the grid scatter to the wrong end of the timeline (round-4
     review). pack_symbols now sorts on the computed ns timestamps, so a
     string-dated frame packs identically to the datetime-typed one."""
-    from iv_interpolation_tpu.pipeline import ingest
+    from iv_engine.pipeline import ingest
 
     dates = pd.date_range("2024-09-30 10:00", periods=12, freq="3h")
     df_dt = pd.DataFrame({

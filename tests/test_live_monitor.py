@@ -10,13 +10,16 @@ import subprocess
 import sys
 import time
 
+import jax
 import pytest
 
-from iv_interpolation_tpu.config import get_config
-from iv_interpolation_tpu.monitoring.monitor import RealtimeMonitor
-from iv_interpolation_tpu.parallel import shardproof
+from iv_engine.config import get_config
+from iv_engine.monitoring.monitor import RealtimeMonitor
+from iv_engine.parallel import shardproof
 
-_CACHE = os.path.join(os.path.expanduser("~"), ".cache", "ivtpu_test_xla")
+# the CLI subprocess shares this process's compile cache
+_CACHE = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+          or jax.config.jax_compilation_cache_dir)
 
 
 @pytest.mark.slow
@@ -26,7 +29,7 @@ def test_monitor_observes_in_flight_run_from_another_process(tmp_path):
     log_dir = str(tmp_path / "logs")
     shardproof._seed_store(data_root, num_symbols=8)
 
-    cmd = [sys.executable, "-m", "iv_interpolation_tpu.cli",
+    cmd = [sys.executable, "-m", "iv_engine.cli",
            "--task", "interpolation", "--env", "testing",
            "--storage", "parquet", "--data-root", data_root, "--json"]
     env = shardproof.cpu_subprocess_env(manifest_dir, log_dir,

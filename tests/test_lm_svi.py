@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 from scipy.optimize import least_squares
 
-from iv_interpolation_tpu.ops.lm import (
+from iv_engine.ops.lm import (
     levenberg_marquardt,
     levenberg_marquardt_batched,
 )
-from iv_interpolation_tpu.ops.svi import (
+from iv_engine.ops.svi import (
     fit_svi,
     fit_svi_batched,
     svi_g,
@@ -145,7 +145,7 @@ def test_svi_butterfly_penalty_restores_no_arb(rng):
 
 
 def test_vega_weights_shape_and_peak():
-    from iv_interpolation_tpu.ops.svi import vega_weights
+    from iv_engine.ops.svi import vega_weights
     k = jnp.linspace(-1.5, 1.5, 31)
     w = jnp.full(31, 0.09)
     wt = vega_weights(k, w)
@@ -155,8 +155,8 @@ def test_vega_weights_shape_and_peak():
 
 
 def test_vega_weighted_fit_prioritises_atm(rng):
-    from iv_interpolation_tpu.surface.surface import fit_surface
-    from iv_interpolation_tpu.ops.svi import svi_total_variance
+    from iv_engine.surface.surface import fit_surface
+    from iv_engine.ops.svi import svi_total_variance
     B, E, n = 1, 2, 50
     p = jnp.tile(jnp.array([0.04, 0.4, -0.4, 0.05, 0.3]), (B, E, 1))
     k = jnp.broadcast_to(jnp.linspace(-1.5, 1.5, n), (B, E, n))
@@ -181,7 +181,7 @@ def test_quasi_init_beats_heuristic_on_hard_slice(rng):
     """Quasi-explicit initialisation (grid over (m, sigma) + linear solve)
     must start closer than the heuristic on a skewed, wide-wing slice and
     let LM converge with fewer iterations."""
-    from iv_interpolation_tpu.ops.svi import svi_quasi_init
+    from iv_engine.ops.svi import svi_quasi_init
     hard = jnp.array([0.002, 0.9, 0.85, -0.6, 0.05])  # strong skew, sharp
     k = jnp.linspace(-1.5, 1.5, 60)
     w = svi_total_variance(hard, k)
@@ -190,7 +190,7 @@ def test_quasi_init_beats_heuristic_on_hard_slice(rng):
         r = svi_total_variance(p0, k) - w
         return float(jnp.sum(r * r))
 
-    from iv_interpolation_tpu.ops.svi import svi_init
+    from iv_engine.ops.svi import svi_init
     assert start_cost(svi_quasi_init(k, w)) < start_cost(svi_init(k, w))
 
     fit_q = fit_svi_batched(k[None], w[None], max_iters=30, init="quasi")
@@ -203,7 +203,7 @@ def test_quasi_init_recovers_clean_slice():
     """The initializer alone should already track the curve closely
     (SVI params are degenerate — (m, sigma) trade off against (a, b, rho)
     — so assert curve-level error, not parameter recovery)."""
-    from iv_interpolation_tpu.ops.svi import svi_quasi_init
+    from iv_engine.ops.svi import svi_quasi_init
     k = jnp.linspace(-1.0, 1.0, 50)
     w = svi_total_variance(jnp.array(TRUE_SVI), k)
     p0 = svi_quasi_init(k, w)
@@ -235,8 +235,8 @@ def test_huber_loss_resists_outlier_quote(rng):
     """One poisoned quote in a smile: the least-squares fit is dragged
     (wing/level distortion), the pseudo-Huber fit stays near truth."""
     import jax.numpy as jnp
-    from iv_interpolation_tpu.ops.svi import (fit_svi_batched,
-                                              svi_total_variance)
+    from iv_engine.ops.svi import (fit_svi_batched,
+                                   svi_total_variance)
     n = 25
     k = np.linspace(-1.0, 1.0, n)
     p_true = jnp.asarray([0.04, 0.12, -0.3, 0.05, 0.2])
@@ -261,7 +261,7 @@ def test_robustify_matches_linear_for_small_residuals():
     """Below the Huber scale the robust residual is ~identical to the
     raw residual (quadratic regime), so clean fits are unchanged."""
     import jax.numpy as jnp
-    from iv_interpolation_tpu.ops.lm import robustify
+    from iv_engine.ops.lm import robustify
     f = lambda p: p * jnp.asarray([1e-6, -3e-6, 2e-7])
     rf = robustify(f, delta=1e-3)
     r = np.asarray(f(jnp.asarray(1.0)))
@@ -276,7 +276,7 @@ def test_robustify_matches_linear_for_small_residuals():
 
 @pytest.mark.slow
 def test_essvi_huber_loss_smoke(rng):
-    from iv_interpolation_tpu.ops.essvi import essvi_w, fit_essvi
+    from iv_engine.ops.essvi import essvi_w, fit_essvi
     E, n = 4, 15
     k = jnp.broadcast_to(jnp.linspace(-0.8, 0.8, n), (E, n))
     theta = jnp.cumsum(jnp.asarray(rng.uniform(0.02, 0.05, E)))

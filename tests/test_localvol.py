@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.surface.localvol import (
+from iv_engine.surface.localvol import (
     local_variance_grid,
     local_vol_surface,
     risk_neutral_density,
 )
-from iv_interpolation_tpu.surface.surface import fit_eval_surface
+from iv_engine.surface.surface import fit_eval_surface
 
 
 @pytest.fixture
@@ -110,7 +110,7 @@ def test_density_nonneg_iff_butterfly_free(rng):
 def test_essvi_local_vol_clean(rng):
     """Local vol through the eSSVI method: guaranteed-admissible fits
     give a real local vol everywhere on the grid."""
-    from iv_interpolation_tpu.ops.essvi import essvi_w, psi_butterfly_cap
+    from iv_engine.ops.essvi import essvi_w, psi_butterfly_cap
     B, E, n = 2, 6, 21
     theta = np.cumsum(rng.uniform(0.01, 0.05, (B, E)), axis=-1)
     rho = np.broadcast_to(rng.uniform(-0.5, 0.5, (B, 1)), (B, E)).copy()
@@ -134,7 +134,7 @@ def test_essvi_local_vol_clean(rng):
 def test_variance_swap_flat_surface():
     """Flat smile: K_var == sigma^2 exactly (up to wing truncation,
     corrected first-order by mass normalisation)."""
-    from iv_interpolation_tpu.surface.localvol import variance_swap_strike
+    from iv_engine.surface.localvol import variance_swap_strike
     sigma = 0.3
     E = 4
     T = np.linspace(0.25, 1.0, E)

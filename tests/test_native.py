@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu import native
+from iv_engine import native
 
 
 requires_native = pytest.mark.skipif(
@@ -55,8 +55,8 @@ def test_gather_unpack_roundtrip(rng):
 def test_ingest_uses_native_or_falls_back(rng):
     """pack_symbols must produce identical batches whichever path runs."""
     import pandas as pd
-    from iv_interpolation_tpu.pipeline.ingest import pack_symbols
-    from iv_interpolation_tpu.pipeline.sample_data import (
+    from iv_engine.pipeline.ingest import pack_symbols
+    from iv_engine.pipeline.sample_data import (
         generate_sample_tickers)
     df = generate_sample_tickers(num_symbols=4, hours=12)
     res32 = pack_symbols(df, (2048,), min_points=2, dtype=np.float32)

@@ -6,7 +6,7 @@ import datetime as dt
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.pipeline import pgwire
+from iv_engine.pipeline import pgwire
 from tests.pg_mock_server import MockPgServer
 
 

@@ -72,7 +72,7 @@ def pg(monkeypatch):
 
 
 def test_write_emits_upsert(pg):
-    from iv_interpolation_tpu.pipeline.storage import PostgresStore
+    from iv_engine.pipeline.storage import PostgresStore
     store = PostgresStore("h", "db", "u", "p")
     df = pd.DataFrame({"symbol": ["a", "b"],
                        "timestamp": pd.date_range("2023-01-01", periods=2,
@@ -92,7 +92,7 @@ def test_write_emits_upsert(pg):
 def test_write_applies_ddl_first(pg):
     """First write per table runs the pipeline DDL (reference lazy table
     creation, main.py:46-163); later writes skip it."""
-    from iv_interpolation_tpu.pipeline.storage import PostgresStore
+    from iv_engine.pipeline.storage import PostgresStore
     store = PostgresStore("h", "db", "u", "p")
     df = pd.DataFrame({"symbol": ["a"],
                        "timestamp": [pd.Timestamp("2023-01-01")],
@@ -107,7 +107,7 @@ def test_write_applies_ddl_first(pg):
 
 
 def test_identifiers_are_validated():
-    from iv_interpolation_tpu.pipeline.storage import _ident
+    from iv_engine.pipeline.storage import _ident
     assert _ident("minute_candles") == '"minute_candles"'
     with pytest.raises(ValueError):
         _ident("bad; DROP TABLE x")
@@ -116,7 +116,7 @@ def test_identifiers_are_validated():
 
 
 def test_list_symbols_and_count(pg):
-    from iv_interpolation_tpu.pipeline.storage import PostgresStore
+    from iv_engine.pipeline.storage import PostgresStore
     store = PostgresStore("h", "db", "u", "p")
     pg["fetch_rows"][:] = [("a",), ("b",)]
     assert store.list_symbols("trading_tickers") == ["a", "b"]
@@ -127,8 +127,8 @@ def test_list_symbols_and_count(pg):
 
 
 def test_create_tables_runs_all_ddl(pg):
-    from iv_interpolation_tpu.pipeline.storage import PostgresStore
-    from iv_interpolation_tpu.pipeline.schema import create_tables
+    from iv_engine.pipeline.storage import PostgresStore
+    from iv_engine.pipeline.schema import create_tables
     store = PostgresStore("h", "db", "u", "p")
     stmts = create_tables(store)
     assert len(stmts) == 4
@@ -141,7 +141,7 @@ def test_create_tables_runs_all_ddl(pg):
 
 
 def test_drop_table(pg):
-    from iv_interpolation_tpu.pipeline.storage import PostgresStore
+    from iv_engine.pipeline.storage import PostgresStore
     store = PostgresStore("h", "db", "u", "p")
     store.drop("minute_candles")
     assert 'DROP TABLE IF EXISTS "minute_candles"' in pg["executed"][-1][0]
@@ -152,7 +152,7 @@ def test_tune_session_failed_set_does_not_poison_rest():
     failures onto the remaining settings (regression: round-3 review —
     psycopg2 non-autocommit connections abort the tx on first error).
     Each SET commits on success and rolls back on failure."""
-    from iv_interpolation_tpu.pipeline.storage import PostgresStore
+    from iv_engine.pipeline.storage import PostgresStore
 
     class FakeCursor:
         def __init__(self, conn):

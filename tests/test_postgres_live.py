@@ -41,8 +41,8 @@ def _live_params():
 
 @pytest.fixture
 def live_store():
-    from iv_interpolation_tpu.pipeline import storage as st
-    from iv_interpolation_tpu.pipeline.storage import PostgresStore
+    from iv_engine.pipeline import storage as st
+    from iv_engine.pipeline.storage import PostgresStore
     server = None
     if _DSN:
         store = PostgresStore(**_live_params(), connect_test=True)
@@ -66,7 +66,7 @@ def live_store():
 
 
 def test_upsert_overwrites(live_store):
-    from iv_interpolation_tpu.pipeline import storage as st
+    from iv_engine.pipeline import storage as st
     df = pd.DataFrame({
         "symbol": ["a"], "timestamp": [pd.Timestamp("2023-01-01")],
         "open": [1.0], "high": [2.0], "low": [0.5], "close": [1.5],
@@ -83,7 +83,7 @@ def test_upsert_overwrites(live_store):
 
 
 def test_check_constraint_rejects_bad_ohlc(live_store):
-    from iv_interpolation_tpu.pipeline import storage as st
+    from iv_engine.pipeline import storage as st
     bad = pd.DataFrame({
         "symbol": ["a"], "timestamp": [pd.Timestamp("2023-01-01")],
         "open": [1.0], "high": [0.1], "low": [0.5], "close": [1.5],
@@ -95,7 +95,7 @@ def test_check_constraint_rejects_bad_ohlc(live_store):
 
 @pytest.mark.slow
 def test_read_iter_streams_chunks(live_store):
-    from iv_interpolation_tpu.pipeline import storage as st
+    from iv_engine.pipeline import storage as st
     n = 5000
     df = pd.DataFrame({
         "symbol": np.repeat(["a", "b"], n // 2),
@@ -110,10 +110,10 @@ def test_read_iter_streams_chunks(live_store):
 
 @pytest.mark.slow
 def test_pipeline_end_to_end_on_postgres(live_store, tmp_path):
-    from iv_interpolation_tpu.config import get_config
-    from iv_interpolation_tpu.pipeline import PipelineRunner
-    from iv_interpolation_tpu.pipeline import storage as st
-    from iv_interpolation_tpu.pipeline.sample_data import (
+    from iv_engine.config import get_config
+    from iv_engine.pipeline import PipelineRunner
+    from iv_engine.pipeline import storage as st
+    from iv_engine.pipeline.sample_data import (
         generate_sample_tickers)
 
     cfg = get_config("testing")
@@ -132,7 +132,7 @@ def test_operational_features(live_store):
     """User-level operational surface (reference
     user_optimized_connection.py): session tuning, permission probing,
     opportunistic CONCURRENTLY index creation, table census report."""
-    from iv_interpolation_tpu.pipeline import storage as st
+    from iv_engine.pipeline import storage as st
 
     conn = live_store._connect()
     try:
@@ -166,7 +166,7 @@ def test_table_report_skips_foreign_tables(live_store, monkeypatch):
     """A shared public schema may contain third-party tables with names
     _ident rejects (or without SELECT permission): the census skips
     them instead of aborting (regression: round-3 review)."""
-    from iv_interpolation_tpu.pipeline import storage as st
+    from iv_engine.pipeline import storage as st
 
     df = pd.DataFrame({
         "symbol": ["a"], "timestamp": [pd.Timestamp("2023-01-01")],

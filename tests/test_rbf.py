@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from scipy.interpolate import RBFInterpolator
 
-from iv_interpolation_tpu.ops.rbf import eval_rbf, fit_eval_rbf_batched, fit_rbf
+from iv_engine.ops.rbf import eval_rbf, fit_eval_rbf_batched, fit_rbf
 
 
 def _scattered_quotes(rng, n):
@@ -85,7 +85,7 @@ def test_arbfree_zero_penalty_matches_scipy_2048(rng):
     penalty weights the stationarity of the penalized objective reduces
     to SciPy's smoothing-RBF system (see ops/rbf.py derivation), so one
     Gauss-Newton step must reproduce RBFInterpolator."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 2048)
     q, _ = _scattered_quotes(rng, 64)
@@ -101,7 +101,7 @@ def test_arbfree_penalty_clears_flags(rng):
     """Arbitrage-laden quotes: the plain fit flags butterfly violations;
     the penalized fit is arbitrage-free on the penalty grid while still
     fitting the (arbitrageable) data to within the wiggle amplitude."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _arb_quotes(rng, 512)
     plain = fit_rbf_arbfree(jnp.array(pts), jnp.array(w), smoothing=1e-8,
@@ -122,7 +122,7 @@ def test_arbfree_penalty_clears_flags(rng):
 @pytest.mark.slow
 def test_arbfree_penalty_2048_sites(rng):
     """Full production scale: 2,048 quotes, penalties on — flags green."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _arb_quotes(rng, 2048, wiggle=0.01)
     fit = fit_rbf_arbfree(jnp.array(pts), jnp.array(w), smoothing=1e-8,
@@ -134,7 +134,7 @@ def test_arbfree_weights_drop_padding(rng):
     """weight-0 quotes must not perturb the fit: garbage values on
     padded rows give the same surface as the unpadded fit (to solver
     tolerance)."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 200)
     q, _ = _scattered_quotes(rng, 40)
@@ -162,7 +162,7 @@ def test_arbfree_nonbinary_weights_match_direct_path(rng):
     squared pre-multiplied w*r (a w^2-weighted objective), diverging
     from the direct path by ~2% of typical w at smoothing=1e-2
     (round-3 review finding)."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 160)
     wts = np.where(np.arange(160) % 2 == 0, 3.0, 1.0)
@@ -185,7 +185,7 @@ def test_arbfree_padding_outside_box_is_inert(rng):
     centers must stay pinned even with the hinge on (round-3 review
     findings: the bbox used all points, and padded centers were free
     basis functions in the penalized path)."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _arb_quotes(rng, 256)
     pad_pts = np.stack([rng.uniform(4.0, 9.0, 32),       # far outside
@@ -207,7 +207,7 @@ def test_arbfree_padding_outside_box_is_inert(rng):
 def test_arbfree_degenerate_strike_range_is_finite(rng):
     """All live quotes at ONE strike: h_k would be 0 (NaN stencils, the
     zero surface returned silently). The guard keeps outputs finite."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     T = rng.uniform(0.05, 2.0, 64)
     pts = np.stack([np.zeros(64), T], axis=1)
@@ -221,7 +221,7 @@ def test_arbfree_degenerate_strike_range_is_finite(rng):
 
 
 def test_arbfree_unknown_kernel_raises_value_error():
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     with pytest.raises(ValueError, match="unknown RBF kernel"):
         fit_rbf_arbfree(jnp.zeros((8, 2)), jnp.zeros(8), kernel="cubic")
@@ -234,7 +234,7 @@ def test_arbfree_reduced_centers_tracks_full_fit(rng):
     basis approximation error (measured ~3e-3 RMS at c=128 over 512
     sites of this surface family; the full fit sits at the 1e-4 noise
     floor — the 13x solve speedup trades exactly this gap)."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 512)
     q, _ = _scattered_quotes(rng, 200)
@@ -265,7 +265,7 @@ def test_arbfree_reduced_centers_tracks_full_fit(rng):
 def test_arbfree_reduced_centers_clears_flags(rng):
     """The hinge machinery is basis-agnostic: arbitrage-laden quotes are
     repaired with the reduced basis too."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _arb_quotes(rng, 512)
     fit = fit_rbf_arbfree(jnp.array(pts), jnp.array(w), smoothing=1e-8,
@@ -279,7 +279,7 @@ def test_arbfree_reduced_centers_skip_padding(rng):
     """Centers are rank-strided over LIVE sites only: garbage weight-0
     padding (inside the box, extreme values) must not change the reduced
     fit, exactly like the full path's padding test."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 256)
     base = fit_rbf_arbfree(jnp.array(pts), jnp.array(w), smoothing=1e-4,
@@ -302,7 +302,7 @@ def test_arbfree_single_slice_penalty_grid(rng):
     penalty off — it used to ZeroDivisionError at trace time on the
     unconditional 1/((n_pen_t-1)*n_pen_k) — and raise a descriptive
     error when a calendar penalty is requested (round-4 review)."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 96)
     fit = fit_rbf_arbfree(jnp.array(pts), jnp.array(w), smoothing=1e-4,
@@ -321,7 +321,7 @@ def test_arbfree_zero_centers_means_exact_path(rng):
     exact full-center fit, bitwise-equal to n_centers=None. Before the
     round-4 review fix, 0 entered the reduced path with a ZERO-center
     basis and silently fit a polynomial-only plane."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 96)
     exact = fit_rbf_arbfree(jnp.array(pts), jnp.array(w),
@@ -335,7 +335,7 @@ def test_arbfree_zero_centers_means_exact_path(rng):
 def test_arbfree_more_centers_than_live_sites_is_finite(rng):
     """n_centers > live count duplicates ranks; the reduced-path ridge
     must keep the (rank-deficient) normal equations finite."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 96)
     wts = jnp.concatenate([jnp.ones(32), jnp.zeros(64)])
@@ -349,11 +349,11 @@ def test_arbfree_more_centers_than_live_sites_is_finite(rng):
 
 
 def test_arbfree_reduced_centers_f32(rng):
-    """TPU regime: the reduced path must survive float32 — the
+    """Device regime: the reduced path must survive float32 — the
     un-ridged normal equations measured cond ~8e9 (NaN f32 Cholesky);
     the 1e-6-relative ridge floor keeps both the direct solve and the
     penalized LM finite and accurate."""
-    from iv_interpolation_tpu.ops.rbf import fit_rbf_arbfree
+    from iv_engine.ops.rbf import fit_rbf_arbfree
 
     pts, w = _scattered_quotes(rng, 512)
     red = fit_rbf_arbfree(jnp.asarray(pts, jnp.float32),

@@ -4,7 +4,7 @@ aggregation off the window."""
 import jax.numpy as jnp
 import numpy as np
 
-from iv_interpolation_tpu.pipeline.ringbuffer import (
+from iv_engine.pipeline.ringbuffer import (
     make_ring,
     push,
     window,

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.ops.sabr import fit_sabr, fit_sabr_batched, sabr_vol
+from iv_engine.ops.sabr import fit_sabr, fit_sabr_batched, sabr_vol
 
 
 def hagan_numpy(alpha, beta, rho, nu, F, K, T):

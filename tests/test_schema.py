@@ -1,8 +1,8 @@
 """Schema DDL contracts (the Postgres adapter's table definitions)."""
 
-from iv_interpolation_tpu.pipeline import MemoryStore
-from iv_interpolation_tpu.pipeline import storage as st
-from iv_interpolation_tpu.pipeline.schema import (
+from iv_engine.pipeline import MemoryStore
+from iv_engine.pipeline import storage as st
+from iv_engine.pipeline.schema import (
     CANDLE_COLUMNS,
     DDL,
     INTERPOLATED_COLUMNS,

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.ops.interp import masked_interp
-from iv_interpolation_tpu.parallel.mesh import make_mesh
-from iv_interpolation_tpu.parallel.sequence import sharded_masked_interp
+from iv_engine.ops.interp import masked_interp
+from iv_engine.parallel.mesh import make_mesh
+from iv_engine.parallel.sequence import sharded_masked_interp
 
 
 def _gappy(rng, shape, frac=0.8):

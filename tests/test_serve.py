@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from iv_interpolation_tpu.pipeline.serve import StreamServer, send_lines
-from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+from iv_engine.pipeline.serve import StreamServer, send_lines
+from iv_engine.pipeline.stream_service import StreamingSession
 
 
 @pytest.fixture
@@ -104,12 +104,12 @@ def test_auto_flush_threshold(server, rng):
 def test_run_serve_from_store(rng):
     """run_serve builds the universe from fitted chains and serves; a
     client streams ticks and refits over the socket."""
-    from iv_interpolation_tpu.config import get_config
-    from iv_interpolation_tpu.pipeline import MemoryStore, PipelineRunner
-    from iv_interpolation_tpu.pipeline import storage as st
-    from iv_interpolation_tpu.pipeline.sample_data import (
+    from iv_engine.config import get_config
+    from iv_engine.pipeline import MemoryStore, PipelineRunner
+    from iv_engine.pipeline import storage as st
+    from iv_engine.pipeline.sample_data import (
         generate_sample_tickers)
-    from iv_interpolation_tpu.pipeline.serve import run_serve
+    from iv_engine.pipeline.serve import run_serve
 
     cfg = get_config("testing")
     cfg.surface.grid_strikes = 10

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from scipy.interpolate import CubicSpline, make_smoothing_spline
 
-from iv_interpolation_tpu.ops.smoothing_spline import (
+from iv_engine.ops.smoothing_spline import (
     eval_smoothing_spline,
     eval_smoothing_spline_derivs,
     fit_smoothing_spline,
@@ -65,7 +65,7 @@ def test_batched(rng):
 def test_smoothing_reduces_butterfly_violations(rng):
     """Noisy smiles that violate butterfly no-arb should stop violating
     after smoothing — the production use case."""
-    from iv_interpolation_tpu.surface.arbitrage import butterfly_g
+    from iv_engine.surface.arbitrage import butterfly_g
     k = np.linspace(-1.0, 1.0, 40)
     w = 0.04 + 0.1 * k**2 + 0.003 * rng.normal(size=40)
     t = jnp.array(np.linspace(-0.9, 0.9, 100))
@@ -82,10 +82,10 @@ def test_smoothing_reduces_butterfly_violations(rng):
 def test_autolam_minimal_smoothing(rng):
     """Noisy violating slices get just enough smoothing to clear the
     butterfly check; clean slices keep (near-)zero smoothing."""
-    from iv_interpolation_tpu.ops.smoothing_spline import (
+    from iv_engine.ops.smoothing_spline import (
         eval_smoothing_spline, fit_smoothing_spline_autolam)
-    from iv_interpolation_tpu.surface.arbitrage import butterfly_g
-    from iv_interpolation_tpu.ops.smoothing_spline import (
+    from iv_engine.surface.arbitrage import butterfly_g
+    from iv_engine.ops.smoothing_spline import (
         eval_smoothing_spline_derivs)
     n = 40
     k = np.broadcast_to(np.linspace(-1.0, 1.0, n), (2, n)).copy()

@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 from scipy.interpolate import CubicSpline
 
-from iv_interpolation_tpu.ops import df64 as df
-from iv_interpolation_tpu.ops.spline_compensated import (
+from iv_engine.ops import df64 as df
+from iv_engine.ops.spline_compensated import (
     eval_cubic_spline_df, fit_cubic_spline_df, fit_eval_surface_compensated,
     queries_df)
 
@@ -103,7 +103,7 @@ def test_surface_parity_and_flags(rng):
 def test_matches_fast_path_to_f32(rng):
     """The compensated hi limb and the matrix fast path agree to f32
     noise — same mathematical object, two numeric routes."""
-    from iv_interpolation_tpu.ops.spline_matrix import (
+    from iv_engine.ops.spline_matrix import (
         build_surface_operators, fit_eval_surface_grid)
     B, E, n, m = 3, 5, 30, 40
     k_row = np.linspace(-0.8, 0.8, n, dtype=np.float32)

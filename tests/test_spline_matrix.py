@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.interpolate import CubicSpline
 
-from iv_interpolation_tpu.ops.spline_matrix import (
+from iv_engine.ops.spline_matrix import (
     apply_spline_operator,
     build_spline_operator,
     build_surface_operators,
     fit_eval_surface_grid,
 )
-from iv_interpolation_tpu.surface.surface import fit_eval_surface
+from iv_engine.surface.surface import fit_eval_surface
 
 
 def test_matches_scipy(rng):

@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+from iv_engine.pipeline.stream_service import StreamingSession
 
 
 def _chains(B, E=4, n=10):
@@ -74,8 +74,8 @@ def test_incremental_ingest_accumulates(session, rng):
 
 @pytest.mark.slow
 def test_stream_replay(rng):
-    from iv_interpolation_tpu.config import get_config
-    from iv_interpolation_tpu.pipeline.stream_service import run_stream_replay
+    from iv_engine.config import get_config
+    from iv_engine.pipeline.stream_service import run_stream_replay
     cfg = get_config("testing")
     cfg.surface.grid_strikes = 12
     rep = run_stream_replay(cfg, n_underlyings=8, window_minutes=128,
@@ -93,7 +93,7 @@ def test_session_handles_out_of_order_ticks(rng):
     otherwise silently re-bucket them into the running-max bucket)."""
     import jax.numpy as jnp
     import pandas as pd
-    from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+    from iv_engine.pipeline.stream_service import StreamingSession
 
     B, E, n = 2, 3, 10
     k = jnp.broadcast_to(jnp.linspace(-0.8, 0.8, n), (B, E, n))
@@ -133,7 +133,7 @@ def test_session_mesh_parity(rng):
     produces bitwise the refit of an unsharded session on the same
     ticks (round 4: the serving path rides the pipeline mesh too)."""
     import jax
-    from iv_interpolation_tpu.parallel.mesh import pipeline_mesh
+    from iv_engine.parallel.mesh import pipeline_mesh
 
     B = 16
     unds = [f"u{i}" for i in range(B)]

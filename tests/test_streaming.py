@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from iv_interpolation_tpu.pipeline.streaming import streaming_step
+from iv_engine.pipeline.streaming import streaming_step
 
 
 def _ticks(rng, B, n_ticks, n_minutes, sigma_annual=0.5):
@@ -90,9 +90,9 @@ def test_streaming_step_operator_path_matches_general(rng):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from iv_interpolation_tpu.ops.spline_matrix import (
+    from iv_engine.ops.spline_matrix import (
         build_surface_operators_batched)
-    from iv_interpolation_tpu.pipeline.streaming import streaming_step
+    from iv_engine.pipeline.streaming import streaming_step
 
     B, L, n_minutes = 8, 256, 64
     E, n, m = 3, 10, 17
@@ -107,7 +107,7 @@ def test_streaming_step_operator_path_matches_general(rng):
     size = jnp.asarray(rng.uniform(0, 5, (B, L)))
     valid = jnp.ones((B, L), bool)
 
-    from iv_interpolation_tpu.surface.surface import common_support_grid
+    from iv_engine.surface.surface import common_support_grid
     for bc in ("natural", "not-a-knot"):
         ref = streaming_step(minute, price, size, valid, k, iv, T,
                              n_minutes=n_minutes, n_grid=m, spline_bc=bc)
@@ -130,7 +130,7 @@ def test_streaming_session_uses_operator_refit(rng):
     import jax.numpy as jnp
     import numpy as np
     import pandas as pd
-    from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+    from iv_engine.pipeline.stream_service import StreamingSession
 
     B, E, n = 4, 3, 10
     k = jnp.broadcast_to(jnp.linspace(-0.8, 0.8, n), (B, E, n))
@@ -161,7 +161,7 @@ def test_streaming_session_epoch_scale_minutes(rng):
     ticks landed in wrong 1-min candles; the session now rebases
     minutes to the first minute seen before they enter the ring."""
     import pandas as pd
-    from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+    from iv_engine.pipeline.stream_service import StreamingSession
 
     B, E, n = 2, 3, 10
     k = jnp.broadcast_to(jnp.linspace(-0.8, 0.8, n), (B, E, n))
@@ -196,7 +196,7 @@ def test_zero_tick_underlying_keeps_quoted_surface(rng):
     (scale 1): realized=0 is 'no data', not 'volatility is zero' — the
     blend used to multiply its whole surface by 0.5 (round-4 review)."""
     import pandas as pd
-    from iv_interpolation_tpu.pipeline.stream_service import StreamingSession
+    from iv_engine.pipeline.stream_service import StreamingSession
 
     B, E, n = 2, 3, 10
     k = jnp.broadcast_to(jnp.linspace(-0.8, 0.8, n), (B, E, n))
@@ -213,7 +213,7 @@ def test_zero_tick_underlying_keeps_quoted_surface(rng):
     out = sess.refit()
     assert float(np.asarray(out.realized_vol)[1]) == 0.0
     # quiet underlying's surface equals the pure quoted-IV fit
-    from iv_interpolation_tpu.surface.surface import fit_eval_surface
+    from iv_engine.surface.surface import fit_eval_surface
     ref = fit_eval_surface(k[1:2], iv[1:2], T[1:2], n_grid=17,
                            spline_bc="not-a-knot")  # session default
     np.testing.assert_allclose(np.asarray(out.w_grid[1]),

@@ -7,17 +7,17 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from iv_interpolation_tpu.config import get_config
-from iv_interpolation_tpu.pipeline import MemoryStore, PipelineRunner
-from iv_interpolation_tpu.pipeline import storage as st
-from iv_interpolation_tpu.pipeline.check_results import (
+from iv_engine.config import get_config
+from iv_engine.pipeline import MemoryStore, PipelineRunner
+from iv_engine.pipeline import storage as st
+from iv_engine.pipeline.check_results import (
     check_candle_results,
     check_interpolation_results,
     compare_minute_vs_reconstructed,
     quick_summary,
 )
-from iv_interpolation_tpu.pipeline.sample_data import generate_sample_tickers
-from iv_interpolation_tpu.pipeline.validate import (
+from iv_engine.pipeline.sample_data import generate_sample_tickers
+from iv_engine.pipeline.validate import (
     estimate_processing,
     validate_readiness,
 )
@@ -92,7 +92,7 @@ def test_estimate_processing(ran_store):
 
 def test_monitor_render(ran_store, capsys):
     cfg, _ = ran_store
-    from iv_interpolation_tpu.monitoring.monitor import RealtimeMonitor
+    from iv_engine.monitoring.monitor import RealtimeMonitor
     mon = RealtimeMonitor(cfg)
     mon.run(max_iterations=2)
     out = capsys.readouterr().out
@@ -105,7 +105,7 @@ def test_monitor_throughput_and_eta(ran_store):
     performance_monitor.py:226-265): first poll primes, second reports;
     a stalled batch with pending symbols gets no ETA."""
     cfg, _ = ran_store
-    from iv_interpolation_tpu.monitoring.monitor import RealtimeMonitor
+    from iv_engine.monitoring.monitor import RealtimeMonitor
     mon = RealtimeMonitor(cfg)
     s1 = {"task": "interpolation", "batch_id": 7,
           "by_status": {"completed": 10, "pending": 20},
@@ -137,7 +137,7 @@ def test_monitor_skips_stray_manifest_files(ran_store, tmp_path):
     """A stray .jsonl in the manifest dir (editor backup, notes) used to
     crash _latest_manifest with int('notes') (round-4 review)."""
     cfg, _ = ran_store
-    from iv_interpolation_tpu.monitoring.monitor import RealtimeMonitor
+    from iv_engine.monitoring.monitor import RealtimeMonitor
     d = cfg.checkpoint.manifest_dir
     with open(f"{d}/notes.jsonl", "w") as f:
         f.write("scratch\n")
@@ -151,7 +151,7 @@ def test_monitor_alerts_persist_across_frames(ran_store, monkeypatch):
     """A persistent CRITICAL must render on EVERY frame — per-message
     dedup made it visible for exactly one repaint (round-4 review)."""
     cfg, _ = ran_store
-    from iv_interpolation_tpu.monitoring import monitor as mon_mod
+    from iv_engine.monitoring import monitor as mon_mod
     monkeypatch.setattr(mon_mod, "host_memory_stats",
                         lambda: {"host_used_pct": 97.0})
     mon = mon_mod.RealtimeMonitor(cfg)
@@ -167,9 +167,9 @@ def test_perf_logger_does_not_propagate(tmp_path):
     the console/main-log handlers (round-4 review)."""
     import logging as _logging
 
-    from iv_interpolation_tpu.monitoring import logging as mlog
+    from iv_engine.monitoring import logging as mlog
     mlog.setup_logging(log_dir=str(tmp_path / "logs"))
-    assert _logging.getLogger("iv_tpu.performance").propagate is False
+    assert _logging.getLogger("iv_engine.performance").propagate is False
 
 
 def test_host_system_census_survives_probe_failure(monkeypatch):
@@ -177,7 +177,7 @@ def test_host_system_census_survives_probe_failure(monkeypatch):
     discard the whole census (round-4 review)."""
     import psutil
 
-    from iv_interpolation_tpu.monitoring.metrics import host_system_census
+    from iv_engine.monitoring.metrics import host_system_census
 
     def boom():
         raise RuntimeError("no net counters in this container")
@@ -190,7 +190,7 @@ def test_host_system_census_survives_probe_failure(monkeypatch):
 
 
 def test_host_system_census_shape():
-    from iv_interpolation_tpu.monitoring.metrics import host_system_census
+    from iv_engine.monitoring.metrics import host_system_census
     c = host_system_census()
     assert "cpu_percent_per_core" in c
     assert "disk_used_pct" in c
@@ -199,7 +199,7 @@ def test_host_system_census_shape():
 
 
 def test_cli_end_to_end(tmp_path, monkeypatch, capsys):
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     rc = cli.main(["--generate-sample-tickers", "--symbols", "2",
                    "--env", "development", "--json",
@@ -219,14 +219,14 @@ def test_cli_end_to_end(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_rejects_unknown_task():
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     with pytest.raises(SystemExit):
         cli.main(["--task", "nonsense"])
 
 
 @pytest.mark.parametrize("method", ["svi", "essvi", "rbf", "ah"])
 def test_surface_task_alternative_methods(ran_store, method):
-    from iv_interpolation_tpu.pipeline.surface_task import run_surface_fit
+    from iv_engine.pipeline.surface_task import run_surface_fit
     cfg, store = ran_store
     cfg.surface.smile_method = method
     cfg.surface.lm_max_iters = 40
@@ -241,8 +241,8 @@ def test_surface_task_local_vol_columns(tmp_path):
     columns alongside the evaluated grid (real chain: 2 expiries x 6
     strikes of one underlying)."""
     import numpy as np
-    from iv_interpolation_tpu.pipeline.surface_task import (SURFACES,
-                                                            run_surface_fit)
+    from iv_engine.pipeline.surface_task import (SURFACES,
+                                                 run_surface_fit)
     cfg = get_config("testing")
     cfg.checkpoint.manifest_dir = str(tmp_path / "runs")
     cfg.interpolation.min_data_points = 5
@@ -269,8 +269,8 @@ def test_surface_task_parity_mode(tmp_path):
     path and persists the df64 low limb: (total_variance,
     total_variance_lo) reconstructs the x64 value (models.spline)."""
     import numpy as np
-    from iv_interpolation_tpu.pipeline.surface_task import (SURFACES,
-                                                            run_surface_fit)
+    from iv_engine.pipeline.surface_task import (SURFACES,
+                                                 run_surface_fit)
     cfg = get_config("testing")
     cfg.checkpoint.manifest_dir = str(tmp_path / "runs")
     cfg.interpolation.min_data_points = 5
@@ -309,8 +309,8 @@ def test_surface_task_ah_local_vol_columns(tmp_path):
     strike-space d2C/dK2 so the 'density' column means the same thing
     for every smile_method — round-3 advisor finding)."""
     import numpy as np
-    from iv_interpolation_tpu.pipeline.surface_task import (SURFACES,
-                                                            run_surface_fit)
+    from iv_engine.pipeline.surface_task import (SURFACES,
+                                                 run_surface_fit)
     cfg = get_config("testing")
     cfg.checkpoint.manifest_dir = str(tmp_path / "runs")
     cfg.interpolation.min_data_points = 5
@@ -343,7 +343,7 @@ def test_surface_task_ah_local_vol_columns(tmp_path):
 
 
 def test_parquet_parts_and_compaction(tmp_path):
-    from iv_interpolation_tpu.pipeline import ParquetStore
+    from iv_engine.pipeline import ParquetStore
     store = ParquetStore(str(tmp_path / "d"), compact_after=4)
     for i in range(3):
         df = pd.DataFrame({
@@ -367,8 +367,8 @@ def test_parquet_parts_and_compaction(tmp_path):
 
 
 def test_monitor_alerts_thresholds(ran_store):
-    from iv_interpolation_tpu.monitoring.monitor import RealtimeMonitor
-    from iv_interpolation_tpu.pipeline.manifest import RunManifest
+    from iv_engine.monitoring.monitor import RealtimeMonitor
+    from iv_engine.pipeline.manifest import RunManifest
     cfg, _ = ran_store
     cfg.monitoring.memory_warn_pct = 0.0   # any usage trips the warning
     cfg.monitoring.low_throughput_surfaces_s = 1e12  # everything is "slow"
@@ -390,8 +390,8 @@ def test_surface_from_prices_when_iv_missing(rng):
     """Quotes with NaN iv but valid mark_price are recovered via BS
     inversion in build_chains."""
     import jax.numpy as jnp
-    from iv_interpolation_tpu.ops.black_scholes import bs_price
-    from iv_interpolation_tpu.pipeline.surface_task import build_chains
+    from iv_engine.ops.black_scholes import bs_price
+    from iv_engine.pipeline.surface_task import build_chains
 
     S, T, r = 25000.0, 0.25, 0.03
     strikes = np.array([22000, 23000, 24000, 25000, 26000, 27000.0])
@@ -415,9 +415,9 @@ def test_surface_from_prices_when_iv_missing(rng):
 
 
 def test_check_surface_results(ran_store):
-    from iv_interpolation_tpu.pipeline.check_results import (
+    from iv_engine.pipeline.check_results import (
         check_surface_results)
-    from iv_interpolation_tpu.pipeline.surface_task import run_surface_fit
+    from iv_engine.pipeline.surface_task import run_surface_fit
     cfg, store = ran_store
     rep0 = check_surface_results(store)
     assert not rep0["ok"] and "no fitted surfaces" in rep0["reason"]
@@ -433,7 +433,7 @@ def test_cli_sample_candles_to_task2_flow(tmp_path, monkeypatch, capsys):
     """Reference flow: generate sample 1-min candles, reconstruct 5-min
     (main.py --generate-sample-candles + --task candles, which was broken
     in the reference, SURVEY §2.1.1)."""
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     assert cli.main(["--generate-sample-candles", "--symbols", "3",
@@ -449,7 +449,7 @@ def test_cli_sample_candles_to_task2_flow(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_both_flow(tmp_path, monkeypatch, capsys):
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     cli.main(["--generate-sample-tickers", "--symbols", "2",
@@ -466,7 +466,7 @@ def test_cli_both_flow(tmp_path, monkeypatch, capsys):
 @pytest.mark.slow
 def test_large_run_confirmation(tmp_path, monkeypatch, capsys):
     """>100 symbols on a TTY prompts; 'n' aborts; --yes bypasses."""
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     cli.main(["--generate-sample-tickers", "--symbols", "120",
@@ -487,7 +487,7 @@ def test_large_run_confirmation(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.slow
 def test_with_monitor_side_process(tmp_path, monkeypatch, capsys):
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     cli.main(["--generate-sample-tickers", "--symbols", "2",
@@ -500,7 +500,7 @@ def test_with_monitor_side_process(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_compact(tmp_path, monkeypatch, capsys):
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     cli.main(["--generate-sample-tickers", "--symbols", "2",
@@ -516,7 +516,7 @@ def test_cli_compact(tmp_path, monkeypatch, capsys):
 @pytest.mark.slow
 def test_cli_surface_method_flag(tmp_path, monkeypatch, capsys):
     """--task surface --method essvi overrides config.smile_method."""
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     assert cli.main(["--generate-sample-tickers", "--symbols", "12",
@@ -537,8 +537,8 @@ def test_surface_task_rbf_penalized_batched(tmp_path):
     whole shape bucket as ONE batched penalized fit (no per-underlying
     Python loop), flags come back clean, and fit_rmse is persisted."""
     import numpy as np
-    from iv_interpolation_tpu.pipeline.surface_task import (SURFACES,
-                                                            run_surface_fit)
+    from iv_engine.pipeline.surface_task import (SURFACES,
+                                                 run_surface_fit)
     cfg = get_config("testing")
     cfg.checkpoint.manifest_dir = str(tmp_path / "runs")
     cfg.interpolation.min_data_points = 5
@@ -575,7 +575,7 @@ def test_cli_init_env_and_check_db(tmp_path, capsys):
     configured storage backend."""
     import json as _json
     import os
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
 
     rc = cli.main(["--init-env", "--data-root", str(tmp_path)])
     assert rc == 0
@@ -600,8 +600,8 @@ def test_surface_task_mesh_parity(tmp_path):
     table the unsharded fit produces (round 4: the surface task is the
     other production compute path wired to the pipeline mesh)."""
     import numpy as np
-    from iv_interpolation_tpu.pipeline.surface_task import (SURFACES,
-                                                            run_surface_fit)
+    from iv_engine.pipeline.surface_task import (SURFACES,
+                                                 run_surface_fit)
     symbols = [f"{u}-{exp}-{strike}-c"
                for u in ("btc", "eth")
                for exp in ("28apr23", "30jun23")
@@ -628,7 +628,7 @@ def test_surface_task_mesh_parity(tmp_path):
 
 
 def test_cli_shard_flag_validation(capsys):
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     assert cli.main(["--shard", "nonsense", "--json"]) == 2
     assert "I/N" in capsys.readouterr().err
     assert cli.main(["--shard", "4/4", "--json"]) == 2
@@ -636,15 +636,14 @@ def test_cli_shard_flag_validation(capsys):
 
 
 def test_validate_readiness_survives_backend_outage(ran_store, monkeypatch):
-    """A backend init failure (relay outage) reports ready=False with
-    the error instead of crashing the readiness check (round-4
-    review)."""
+    """A device init failure reports ready=False with the error instead
+    of crashing the readiness check."""
     import jax
 
-    from iv_interpolation_tpu.pipeline.validate import validate_readiness
+    from iv_engine.pipeline.validate import validate_readiness
 
     def boom():
-        raise RuntimeError("UNAVAILABLE: TPU backend setup failed")
+        raise RuntimeError("UNAVAILABLE: device init failure")
 
     monkeypatch.setattr(jax, "devices", boom)
     cfg, store = ran_store
@@ -660,8 +659,8 @@ def test_compare_minute_vs_reconstructed_filters_frequency(ran_store):
     (round-4 review)."""
     import pandas as pd
 
-    from iv_interpolation_tpu.pipeline import storage as st
-    from iv_interpolation_tpu.pipeline.check_results import (
+    from iv_engine.pipeline import storage as st
+    from iv_engine.pipeline.check_results import (
         compare_minute_vs_reconstructed)
 
     cfg, store = ran_store
@@ -693,7 +692,7 @@ def test_build_chains_dedupes_f32_colliding_strikes():
     """Two x64-distinct strikes whose f32 log-moneyness collide must
     collapse to one quote: the device solvers run f32, and a zero-width
     knot interval infs that surface silently (round-5 chip drive)."""
-    from iv_interpolation_tpu.pipeline.surface_task import build_chains
+    from iv_engine.pipeline.surface_task import build_chains
 
     S = 25000.0
     # strikes at log-moneyness ~0.5 separated by 1e-9 in k: distinct in
@@ -717,7 +716,7 @@ def test_build_chains_dedupes_f32_colliding_strikes():
 def test_cli_check_quick_emits_census_only(tmp_path, monkeypatch, capsys):
     """--check --quick prints ONE payload (the quick census) and skips
     the per-task audits (reference check_results.py --quick)."""
-    from iv_interpolation_tpu import cli
+    from iv_engine import cli
     monkeypatch.chdir(tmp_path)
     root = str(tmp_path / "data")
     assert cli.main(["--generate-sample-tickers", "--symbols", "1",
@@ -736,12 +735,12 @@ def test_cli_check_quick_emits_census_only(tmp_path, monkeypatch, capsys):
 @pytest.mark.slow
 def test_surface_task_ah_batch_cap(tmp_path, monkeypatch):
     """surface.ah_max_batch chunks AH fits (compile-wall guard, VERDICT
-    r4 #7 / docs/PERF.md "AH roofline"): a bucket bigger than the cap is
+    r4 #7): a bucket bigger than the cap is
     fit in <=cap chunks whose persisted output matches the one-batch
     fit; other methods are untouched by the knob."""
-    from iv_interpolation_tpu import models
-    from iv_interpolation_tpu.pipeline.surface_task import (SURFACES,
-                                                            run_surface_fit)
+    from iv_engine import models
+    from iv_engine.pipeline.surface_task import (SURFACES,
+                                                 run_surface_fit)
     cfg = get_config("testing")
     cfg.checkpoint.manifest_dir = str(tmp_path / "runs")
     cfg.interpolation.min_data_points = 5

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from scipy.linalg import solve_banded
 
-from iv_interpolation_tpu.ops.tridiag import (
+from iv_engine.ops.tridiag import (
     tridiag_matvec,
     tridiag_solve,
     tridiag_solve_batch_last,
@@ -69,7 +69,7 @@ def test_matvec_roundtrip(rng):
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 50, 257])
 def test_pcr_matches_scipy(rng, n):
-    from iv_interpolation_tpu.ops.tridiag import tridiag_solve_pcr
+    from iv_engine.ops.tridiag import tridiag_solve_pcr
     d = rng.uniform(4.0, 6.0, n)
     dl = rng.uniform(-1.0, 1.0, n)
     du = rng.uniform(-1.0, 1.0, n)
@@ -81,7 +81,7 @@ def test_pcr_matches_scipy(rng, n):
 
 
 def test_pcr_batched(rng):
-    from iv_interpolation_tpu.ops.tridiag import tridiag_solve_pcr
+    from iv_engine.ops.tridiag import tridiag_solve_pcr
     n, batch = 50, 256
     d = rng.uniform(4.0, 6.0, (n, batch))
     dl = rng.uniform(-1.0, 1.0, (n, batch))

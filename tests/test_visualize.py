@@ -4,12 +4,12 @@ import os
 
 import pytest
 
-from iv_interpolation_tpu.config import get_config
-from iv_interpolation_tpu.pipeline import MemoryStore, PipelineRunner
-from iv_interpolation_tpu.pipeline import storage as st
-from iv_interpolation_tpu.pipeline.sample_data import generate_sample_tickers
-from iv_interpolation_tpu.pipeline.surface_task import run_surface_fit
-from iv_interpolation_tpu.pipeline.visualize import PipelineVisualizer
+from iv_engine.config import get_config
+from iv_engine.pipeline import MemoryStore, PipelineRunner
+from iv_engine.pipeline import storage as st
+from iv_engine.pipeline.sample_data import generate_sample_tickers
+from iv_engine.pipeline.surface_task import run_surface_fit
+from iv_engine.pipeline.visualize import PipelineVisualizer
 
 
 @pytest.fixture(scope="module")
